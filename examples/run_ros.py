@@ -20,10 +20,8 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from orbslam3_tpu.utils import ensure_backend
-ensure_backend()
 
-from orbslam3_tpu.utils.config import system_from_config
+from orbslam3_jax.utils.config import system_from_config
 
 
 def main():
@@ -135,7 +133,7 @@ def main():
         dispatch("rgbd", (to_gray(msg_rgb), np.asarray(depth, np.float32)),
                  msg_rgb.header.stamp.to_sec())
 
-    rospy.init_node("orbslam3_tpu", anonymous=True)
+    rospy.init_node("orbslam3_jax", anonymous=True)
     subs = []
     sync_thread = None
     if inertial:
@@ -158,7 +156,7 @@ def main():
         sync.registerCallback(on_rgbd)
         subs.append(sync)
 
-    print(f"orbslam3_tpu ROS node up ({args.mode}); ctrl-c to finish")
+    print(f"orbslam3_jax ROS node up ({args.mode}); ctrl-c to finish")
     try:
         rospy.spin()
     except KeyboardInterrupt:

@@ -11,12 +11,10 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from orbslam3_tpu.utils import ensure_backend
-ensure_backend()
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 
 def main():
@@ -53,7 +51,7 @@ def main():
                                  with_scale=args.mode == "mono")
     print(f"RMS ATE: {ate:.4f} over {n} frames | stats: {slam.stats()}")
     if args.render:
-        from orbslam3_tpu.models.viewer import render_map
+        from orbslam3_jax.models.viewer import render_map
         render_map(slam.map, args.render, trajectory=t_wc)
         print("map rendered to", args.render)
 

@@ -18,12 +18,10 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from orbslam3_tpu.utils import ensure_backend
-ensure_backend()
 
-from orbslam3_tpu.utils.config import load_config, system_from_config
-from orbslam3_tpu.utils.datasets import load_tum_rgbd
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.utils.config import load_config, system_from_config
+from orbslam3_jax.utils.datasets import load_tum_rgbd
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 
 def main():

@@ -23,12 +23,10 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from orbslam3_tpu.utils import ensure_backend
-ensure_backend()
 
-from orbslam3_tpu.utils.config import system_from_config
-from orbslam3_tpu.utils.datasets import load_euroc_images, load_euroc_imu
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.utils.config import system_from_config
+from orbslam3_jax.utils.datasets import load_euroc_images, load_euroc_imu
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 
 def load_tum_vi_mocap(seq_dir):
@@ -110,7 +108,7 @@ def main():
     slam.save_trajectory_euroc(args.out)
     print("stats:", slam.stats())
     if args.render:
-        from orbslam3_tpu.models.viewer import render_map
+        from orbslam3_jax.models.viewer import render_map
         _, _, t_wc, _ = slam.export_trajectory()
         render_map(slam.map, args.render, trajectory=t_wc)
     if gt_ts:

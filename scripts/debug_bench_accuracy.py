@@ -10,27 +10,10 @@ import time
 
 import numpy as np
 
-
-def _claim_tpu():
-    import jax
-    try:
-        jax.devices()
-    except RuntimeError:
-        tries = int(os.environ.get("BENCH_TPU_RETRY", "0"))
-        if tries < 6:
-            time.sleep(45)
-            os.environ["BENCH_TPU_RETRY"] = str(tries + 1)
-            os.execv(sys.executable, [sys.executable] + sys.argv)
-        jax.config.update("jax_platforms", "cpu")
-
-
-if os.environ.get("JAX_PLATFORMS", "") != "cpu":
-    _claim_tpu()
-
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackingParams
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackingParams
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 
 def main(n_frames=120, pipeline=True, kf_int=None, redundancy=0.9):
@@ -44,7 +27,7 @@ def main(n_frames=120, pipeline=True, kf_int=None, redundancy=0.9):
     print("traj:", traj, " mapping:", mode)
     scene = RoomScene(seed=1, n_clutter=4)
     if traj == "walk":
-        from orbslam3_tpu.utils.datasets import walk_trajectory
+        from orbslam3_jax.utils.datasets import walk_trajectory
         poses = walk_trajectory(n_frames, period=280)
     else:
         poses = orbit_trajectory(n_frames, radius=1.0, forward=0.0)
@@ -79,7 +62,7 @@ def main(n_frames=120, pipeline=True, kf_int=None, redundancy=0.9):
                     "DBG_COVERAGE_GT"):
                 # project through the GT pose mapped into the map frame via
                 # the healthy-prefix similarity (est <- gt)
-                from orbslam3_tpu.utils.evaluation import horn_align
+                from orbslam3_jax.utils.evaluation import horn_align
                 ts_, R_wc_, t_wc_, lost_ = slam.export_trajectory()
                 sel_ = ~lost_ & (ts_ < 12.0)
                 gi_ = np.rint(ts_[sel_] * 20.0).astype(int)
@@ -178,7 +161,7 @@ def main(n_frames=120, pipeline=True, kf_int=None, redundancy=0.9):
     print(f"wall: {wall:.1f}s  fps={n_frames / wall:.2f}")
     # per-frame error profile after similarity alignment
     try:
-        from orbslam3_tpu.utils.evaluation import horn_align
+        from orbslam3_jax.utils.evaluation import horn_align
         ts, R_wc, t_wc, lost = slam.export_trajectory()
         sel = ~lost
         gi = np.rint(ts[sel] * 20.0).astype(int)

@@ -12,8 +12,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import features as feat_ops, matching
-from orbslam3_tpu.utils.datasets import RoomScene, walk_trajectory
+from orbslam3_jax.ops import features as feat_ops, matching
+from orbslam3_jax.utils.datasets import RoomScene, walk_trajectory
 
 scene = RoomScene(seed=1, n_clutter=4)
 poses = walk_trajectory(300, period=280)

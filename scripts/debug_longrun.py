@@ -13,11 +13,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from orbslam3_tpu.models.map import MapConfig
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackingParams, TrackState
-from orbslam3_tpu.utils.datasets import RoomScene
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.map import MapConfig
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackingParams, TrackState
+from orbslam3_jax.utils.datasets import RoomScene
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 N_FRAMES = int(sys.argv[1]) if len(sys.argv) > 1 else 600
 PERIOD = 400

@@ -15,8 +15,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import ba as ba_ops, lie
-from orbslam3_tpu.parallel import sharded_ba
+from orbslam3_jax.ops import ba as ba_ops, lie
+from orbslam3_jax.parallel import sharded_ba
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests"))

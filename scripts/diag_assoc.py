@@ -6,8 +6,8 @@ if matching slid to neighboring features, they show a coherent offset.
 """
 import numpy as np
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene
 
 FPS = 20.0
 

@@ -2,8 +2,8 @@
 direction error (deg), magnitude ratio est/gt, for frames 10-30."""
 import numpy as np
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene
 
 FPS = 20.0
 SCALE = 5.83  # est->gt scale from the stable window

@@ -8,7 +8,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import imu as imu_ops, imu_init as ii, lie
+from orbslam3_jax.ops import imu as imu_ops, imu_init as ii, lie
 
 G_W = np.array([0.0, 9.81, 0.0])
 FPS = 20.0

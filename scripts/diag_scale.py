@@ -7,9 +7,9 @@ constant scale; drift here is what breaks inertial initialization.
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 FPS = 20.0
 

@@ -2,8 +2,8 @@
 keyframe centers to their GT positions and log the fitted scale + events."""
 import numpy as np
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene
 
 FPS = 20.0
 

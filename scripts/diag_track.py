@@ -5,9 +5,9 @@ optimization, plus match/inlier counts and the KF-policy inputs.
 """
 import numpy as np
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models import tracking as trk
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models import tracking as trk
+from orbslam3_jax.utils.datasets import RoomScene
 
 FPS = 20.0
 

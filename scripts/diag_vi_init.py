@@ -4,9 +4,9 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.ops import lie
+from orbslam3_jax.utils.datasets import RoomScene
 
 G_W = np.array([0.0, 9.81, 0.0])
 FPS = 20.0

@@ -20,7 +20,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from orbslam3_tpu.utils.evaluation import associate, horn_align
+from orbslam3_jax.utils.evaluation import associate, horn_align
 
 
 def load_traj(path, fmt):

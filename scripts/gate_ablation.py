@@ -28,10 +28,10 @@ GATES = ("gate_divergence", "gate_ema_floor", "gate_init_split", "gate_anchor")
 
 def run_mono_walk(n_frames, seed, **gate_kw):
     """The bench walk: revisit leg exercises the divergence/EMA gates."""
-    from orbslam3_tpu.models.system import SlamSystem
-    from orbslam3_tpu.models.tracking import TrackingParams
-    from orbslam3_tpu.utils.datasets import RoomScene, walk_trajectory
-    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    from orbslam3_jax.models.system import SlamSystem
+    from orbslam3_jax.models.tracking import TrackingParams
+    from orbslam3_jax.utils.datasets import RoomScene, walk_trajectory
+    from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
     scene = RoomScene(seed=seed, n_clutter=4)
     poses = walk_trajectory(n_frames, period=max(80, (2 * n_frames) // 3))
@@ -57,10 +57,10 @@ def run_mono_walk(n_frames, seed, **gate_kw):
 def run_stereo_traverse(n_frames, seed, **gate_kw):
     """Stereo lateral traverse (the fixture class r4's gate regression
     broke: tests/test_atlas.py stereo phase-1 traverse)."""
-    from orbslam3_tpu.models.system import SlamSystem
-    from orbslam3_tpu.models.tracking import TrackingParams
-    from orbslam3_tpu.utils.datasets import RoomScene
-    from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+    from orbslam3_jax.models.system import SlamSystem
+    from orbslam3_jax.models.tracking import TrackingParams
+    from orbslam3_jax.utils.datasets import RoomScene
+    from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
     scene = RoomScene(seed=seed, depth=6.0, half_w=5.0, half_h=2.5)
     baseline = 0.11

@@ -12,8 +12,8 @@ import numpy as np
 import sys as _s
 _s.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene
 
 
 def pose_at(x, radius=0.6, forward=0.03, yaw_rate=0.003):

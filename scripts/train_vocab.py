@@ -2,7 +2,7 @@
 
 The reference ships a 1M-word ORBvoc trained offline on real imagery
 (absent from its snapshot; loaded via TemplatedVocabulary::loadFromTextFile).
-This framework's packaged vocabulary (orbslam3_tpu/data/vocab_synth.npz) is
+This framework's packaged vocabulary (orbslam3_jax/data/vocab_synth.npz) is
 trained here: bit_pattern_31 ORB descriptors extracted from many rendered
 viewpoints across several scene seeds, hierarchical k-medians (k=10, L=4 →
 10k words), tf-idf weights from a corpus pass (reference
@@ -21,12 +21,12 @@ def main(out_path=None, levels=4, n_scenes=6, imgs_per_scene=20):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from orbslam3_tpu.ops import features as feat_ops
-    from orbslam3_tpu.utils.datasets import RoomScene
+    from orbslam3_jax.ops import features as feat_ops
+    from orbslam3_jax.utils.datasets import RoomScene
 
     out_path = out_path or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "orbslam3_tpu", "data", "vocab_synth.npz")
+        "orbslam3_jax", "data", "vocab_synth.npz")
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
 
     cfg = feat_ops.OrbConfig(n_features=512)
@@ -57,7 +57,7 @@ def main(out_path=None, levels=4, n_scenes=6, imgs_per_scene=20):
     desc = np.concatenate(all_desc)
     print("training on", len(desc), "descriptors")
 
-    from orbslam3_tpu.ops.vocab import BinaryVocabulary
+    from orbslam3_jax.ops.vocab import BinaryVocabulary
     vocab = BinaryVocabulary(k=10, levels=levels).train(desc, seed=1)
     print(f"trained {vocab.n_words} words ({time.time()-t0:.0f}s)")
 

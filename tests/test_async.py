@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 N_FRAMES = 28
 

@@ -2,7 +2,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import camera
+from orbslam3_jax.ops import camera
 
 
 K = jnp.asarray([458.654, 457.296, 367.215, 248.375], dtype=jnp.float32)  # EuRoC-like

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from orbslam3_tpu.utils.config import load_config
+from orbslam3_jax.utils.config import load_config
 
 EUROC_YAML = """%YAML:1.0
 Camera.type: "PinHole"

@@ -3,7 +3,7 @@ import os
 
 import numpy as np
 
-from orbslam3_tpu.utils.datasets import load_kitti_sequence, load_tum_rgbd
+from orbslam3_jax.utils.datasets import load_kitti_sequence, load_tum_rgbd
 
 
 def test_kitti_layout(tmp_path):

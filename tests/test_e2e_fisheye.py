@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 # TUM-VI-like fisheye intrinsics on a 512x512 sensor
 KB8 = np.asarray([190.978, 190.973, 256.0, 256.0,
@@ -27,7 +27,7 @@ def test_fisheye_two_camera_stereo_tracks_metric():
     rig baseline makes the map metric — ATE is asserted WITHOUT scale
     alignment."""
     import jax.numpy as jnp
-    from orbslam3_tpu.ops import lie as lie_ops
+    from orbslam3_jax.ops import lie as lie_ops
     scene = RoomScene(seed=8, depth=6.0, half_w=4.0, half_h=2.5,
                       h=512, w=512, fx=190.978, fy=190.973, cx=256.0, cy=256.0)
     scene.kb8_params = KB8

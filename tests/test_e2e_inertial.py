@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import pytest
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.utils.datasets import RoomScene
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.ops import lie
+from orbslam3_jax.utils.datasets import RoomScene
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 G_W = np.array([0.0, 9.81, 0.0])  # camera y is down → gravity along +y in world
 FPS = 20.0

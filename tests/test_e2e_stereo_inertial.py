@@ -3,13 +3,11 @@ scale from frame one; the IMU init must refine gravity/biases WITHOUT
 breaking that scale (fixed-scale inertial MAP, reference InitializeIMU with
 the 1e5 acc prior for stereo, src/LocalMapping.cc:213-221)."""
 import numpy as np
-import jax.numpy as jnp
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.utils.datasets import RoomScene
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene, synthetic_imu
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 G_W = np.array([0.0, 9.81, 0.0])
 FPS = 20.0
@@ -25,28 +23,10 @@ def pose_at(x, radius=0.6, forward=0.03, yaw_rate=0.003):
     return R_wc.T, -R_wc.T @ c
 
 
-def make_imu(n_frames):
-    dt = 1.0 / IMU_HZ
-    n_steps = int(n_frames * IMU_HZ / FPS)
-    xs = np.arange(n_steps + 1) * (FPS / IMU_HZ)
-    poses = [pose_at(x) for x in xs]
-    R_wb = np.stack([R.T for R, t in poses])
-    p = np.stack([-R.T @ t for R, t in poses])
-    v = np.gradient(p, dt, axis=0)
-    a_w = np.gradient(v, dt, axis=0)
-    gyro = np.zeros((n_steps, 3))
-    for i in range(n_steps):
-        dRm = R_wb[i].T @ R_wb[i + 1]
-        gyro[i] = np.asarray(lie.so3_log(jnp.asarray(dRm.astype(np.float32)))) / dt
-    acc = np.einsum("nji,nj->ni", R_wb[:-1], a_w[:-1] - G_W[None])
-    ts = (np.arange(n_steps) + 1) * dt
-    return ts, gyro.astype(np.float32), acc.astype(np.float32)
-
-
 def test_stereo_inertial_metric_ate():
     n_frames = 36
     scene = RoomScene(seed=2, depth=6.0, half_w=4.0, half_h=2.5)
-    imu_ts, gyro, acc = make_imu(n_frames)
+    imu_ts, gyro, acc = synthetic_imu(pose_at, n_frames, FPS, IMU_HZ, G_W)
     bf = BASELINE * scene.fx
     sys = SlamSystem(scene.K, None, (scene.w, scene.h), n_features=512, seed=0, tracking_params=dense_tracking_params(),
                      bf=bf, th_depth=BASELINE * 40, enable_loop_closing=False)

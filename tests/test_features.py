@@ -2,8 +2,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import features, matching
-from orbslam3_tpu.utils.datasets import SyntheticScene, orbit_trajectory
+from orbslam3_jax.ops import features, matching
+from orbslam3_jax.utils.datasets import SyntheticScene, orbit_trajectory
 
 CFG = features.OrbConfig(n_features=512)
 

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import features as feat_ops, pose_opt
-from orbslam3_tpu.models import kernels
-from orbslam3_tpu.parallel import sharded_ba
-from orbslam3_tpu.parallel.frontend_batch import make_batched_frontend
+from orbslam3_jax.ops import features as feat_ops, pose_opt
+from orbslam3_jax.models import kernels
+from orbslam3_jax.parallel import sharded_ba
+from orbslam3_jax.parallel.frontend_batch import make_batched_frontend
 
 
 def test_batched_frontend_matches_single():
@@ -54,9 +54,15 @@ def test_batched_frontend_matches_single():
             feats.xy, feats.desc, feats.octave, feats.valid, wh,
             jnp.asarray(8.0, jnp.float32), jnp.asarray(0.9, jnp.float32),
             jnp.asarray(100, jnp.int32), jnp.asarray(0.5, jnp.float32))
-        pts = jnp.zeros((cap, 3), jnp.float32).at[idx].set(
-            jnp.where(ok[:, None], jnp.asarray(mp_xyz[i]), 0.0))
-        valid = jnp.zeros((cap,), bool).at[idx].max(ok)
+        # each matched row's point in its feature's slot, in plain numpy
+        rows = np.nonzero(np.asarray(ok))[0]
+        slots = np.asarray(idx)[rows]
+        assert len(set(slots.tolist())) == len(slots)
+        pts = np.zeros((cap, 3), np.float32)
+        pts[slots] = mp_xyz[i][rows]
+        valid = np.zeros(cap, bool)
+        valid[slots] = True
+        pts, valid = jnp.asarray(pts), jnp.asarray(valid)
         inv_s2 = 1.0 / (cfg.scale ** (2.0 * feats.octave.astype(jnp.float32)))
         return pose_opt.pose_optimize(jnp.asarray(R0[i]), jnp.asarray(t0[i]),
                                       pts, feats.xy, inv_s2, valid,

@@ -3,9 +3,9 @@ empirically-tuned gate must be ablatable and must demonstrably change the
 decision it guards)."""
 import numpy as np
 
-from orbslam3_tpu.ops import features as feat_ops
-from orbslam3_tpu.models.map import MapConfig, MapState
-from orbslam3_tpu.models.tracking import Tracker, TrackingParams
+from orbslam3_jax.ops import features as feat_ops
+from orbslam3_jax.models.map import MapConfig, MapState
+from orbslam3_jax.models.tracking import Tracker, TrackingParams
 
 
 def _tracker(**gate_kw):
@@ -29,7 +29,7 @@ def test_ema_floor_toggle():
 def test_anchor_health_toggle():
     tr = _tracker()
     # a degraded last frame (few matches) disables the anchored protections
-    from orbslam3_tpu.models.frame import Frame
+    from orbslam3_jax.models.frame import Frame
     n = tr.orb_cfg.total_capacity
     lf = Frame(0, 0.0, xy=np.zeros((n, 2), np.float32),
                angle=np.zeros(n, np.float32), octave=np.zeros(n, np.int32),

@@ -11,9 +11,9 @@ drag it by the LARGE end-of-chain correction.
 import numpy as np
 import pytest
 
-from orbslam3_tpu.models.local_mapping import LocalMapper
-from orbslam3_tpu.models.map import MapConfig, MapState
-from orbslam3_tpu.ops import features as feat_ops
+from orbslam3_jax.models.local_mapping import LocalMapper
+from orbslam3_jax.models.map import MapConfig, MapState
+from orbslam3_jax.ops import features as feat_ops
 
 K_CAM = np.asarray([458.0, 458.0, 376.0, 240.0], np.float32)
 

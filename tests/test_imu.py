@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import imu, lie
+from orbslam3_jax.ops import imu, lie
 
 
 def integrate(acc_fn, gyro_fn, n=100, dt=0.005, bg=None, ba=None):

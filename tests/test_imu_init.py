@@ -3,8 +3,8 @@ from keyframe poses + preintegrations on a synthetic trajectory."""
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import imu as imu_ops
-from orbslam3_tpu.ops import imu_init, lie
+from orbslam3_jax.ops import imu as imu_ops
+from orbslam3_jax.ops import imu_init, lie
 
 
 def simulate(n_kf=10, kf_dt=0.25, hz=200, scale=0.25, g_tilt=(0.06, -0.04),

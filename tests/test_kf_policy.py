@@ -11,10 +11,10 @@ src/Tracking.cc:3468-3643) inserts keyframes at its own cadence.
 import numpy as np
 import pytest
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackingParams, TrackState
-from orbslam3_tpu.utils.datasets import RoomScene, walk_trajectory
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackingParams, TrackState
+from orbslam3_jax.utils.datasets import RoomScene, walk_trajectory
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 
 def test_reference_kf_policy_e2e():

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.ops import lie
+from orbslam3_jax.ops import lie
 
 
 def rand_w(n, scale=1.0, seed=0):

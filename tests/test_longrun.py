@@ -21,11 +21,11 @@ import os
 import numpy as np
 import pytest
 
-from orbslam3_tpu.models.map import MapConfig
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackingParams, TrackState
-from orbslam3_tpu.utils.datasets import RoomScene
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.map import MapConfig
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackingParams, TrackState
+from orbslam3_jax.utils.datasets import RoomScene
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 # multi-hundred-frame bounded-cost runs — excluded from the fast profile (pytest.ini)
 pytestmark = pytest.mark.slow

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.models.loop_closing import LoopCloser
-from orbslam3_tpu.models.map import MapConfig, MapState
-from orbslam3_tpu.ops import lie, vocab as vocab_ops
+from orbslam3_jax.models.loop_closing import LoopCloser
+from orbslam3_jax.models.map import MapConfig, MapState
+from orbslam3_jax.ops import lie, vocab as vocab_ops
 
 K_CAM = np.asarray([458.0, 458.0, 376.0, 240.0], np.float32)
 WH = (752, 480)

@@ -20,9 +20,9 @@ import numpy as np
 import pytest
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.ops import vocab as vocab_ops
-from orbslam3_tpu.utils.datasets import RoomScene, walk_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.ops import vocab as vocab_ops
+from orbslam3_jax.utils.datasets import RoomScene, walk_trajectory
 
 # builds two full maps for the FP audit — excluded from the fast profile (pytest.ini)
 pytestmark = pytest.mark.slow

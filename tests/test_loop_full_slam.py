@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.map import MapConfig
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.map import MapConfig
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.utils.datasets import RoomScene
 
 # full SLAM loop-closure sequences (~12 min batch) — excluded from the fast profile (pytest.ini)
 pytestmark = pytest.mark.slow

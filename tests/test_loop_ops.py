@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import lie, posegraph, sim3, vocab
+from orbslam3_jax.ops import lie, posegraph, sim3, vocab
 
 
 def test_horn_sim3_exact():
@@ -180,7 +180,7 @@ def test_optimize_sim3_converges():
     """GN Sim3 refinement (reference Optimizer::OptimizeSim3
     src/Optimizer.cc:3555) recovers a known similarity from reprojections."""
     import jax.numpy as jnp
-    from orbslam3_tpu.ops import lie, sim3 as sim3_ops
+    from orbslam3_jax.ops import lie, sim3 as sim3_ops
     rng = np.random.default_rng(0)
     N = 120
     K = jnp.asarray([458.0, 458.0, 376.0, 240.0], jnp.float32)

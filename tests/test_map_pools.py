@@ -9,7 +9,7 @@ up. These tests pin the remap protocol.
 import numpy as np
 import pytest
 
-from orbslam3_tpu.models.map import MapConfig, MapState
+from orbslam3_jax.models.map import MapConfig, MapState
 
 
 def make_map(K=16, P=64, N=8):
@@ -118,9 +118,9 @@ def test_maybe_compact_compacts_then_grows():
 def test_tracker_remap_integration():
     """Tracker-held ids (ref_kf, trajectory, live frame assignments) follow a
     compaction."""
-    from orbslam3_tpu.models.frame import Frame
-    from orbslam3_tpu.ops.features import OrbConfig
-    from orbslam3_tpu.models.tracking import Tracker
+    from orbslam3_jax.models.frame import Frame
+    from orbslam3_jax.ops.features import OrbConfig
+    from orbslam3_jax.models.tracking import Tracker
 
     m = make_map(K=16, P=64, N=8)
     cfg = OrbConfig(n_features=8)
@@ -154,7 +154,7 @@ def test_spanning_tree_reparent_and_compact():
     """Spanning tree (reference KeyFrame::mpParent): parent assignment
     survives culling (children re-parent to the grandparent,
     src/KeyFrame.cc:758-888) and compaction (value remap)."""
-    from orbslam3_tpu.models.map import MapConfig, MapState
+    from orbslam3_jax.models.map import MapConfig, MapState
     cfg = MapConfig(max_keyframes=8, max_map_points=64, n_features=8)
     m = MapState(cfg)
     rng = np.random.default_rng(0)

@@ -22,8 +22,8 @@ cannot move at all.
 import numpy as np
 import pytest
 
-from orbslam3_tpu.models.loop_closing import LoopCloser
-from orbslam3_tpu.models.map import MapConfig, MapState
+from orbslam3_jax.models.loop_closing import LoopCloser
+from orbslam3_jax.models.map import MapConfig, MapState
 
 # 64-KF drifted-map merge — excluded from the fast profile (pytest.ini)
 pytestmark = pytest.mark.slow

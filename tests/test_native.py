@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from orbslam3_tpu import native
+from orbslam3_jax import native
 
 
 @pytest.fixture(scope="module")
@@ -62,3 +62,29 @@ def test_replace_points_dedups(pools):
     for k in range(len(fm)):
         row = fm[k][fm[k] >= 0]
         assert len(row) == len(np.unique(row))
+
+
+def test_native_build_is_keyed_by_source_hash(tmp_path):
+    """The library lands in the gitignored build directory under a name
+    hashed from its source, so an edited source (or a library copied from
+    elsewhere under another name) is never loaded in its place."""
+    import os
+    import shutil
+    assert native.library_path().startswith(native.BUILD_DIR + os.sep)
+    assert os.path.basename(native.BUILD_DIR) == "build"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert "build/" in f.read().split()
+    src = shutil.copy(native._SRC, tmp_path / "mapops.cpp")
+    out = tmp_path / "build"
+    first = native.build(str(src), str(out))
+    assert os.path.exists(first)
+    stamp = os.path.getmtime(first)
+    assert native.build(str(src), str(out)) == first       # no rebuild
+    assert os.path.getmtime(first) == stamp
+    with open(src, "a") as f:
+        f.write("\n// edited\n")
+    second = native.build(str(src), str(out))
+    assert second != first and os.path.exists(second)
+    assert sorted(os.listdir(out)) == sorted(
+        os.path.basename(p) for p in (first, second))

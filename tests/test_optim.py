@@ -2,7 +2,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import ba, lie, pose_opt, triangulation
+from orbslam3_jax.ops import ba, lie, pose_opt, triangulation
 
 K_CAM = jnp.asarray([458.0, 458.0, 376.0, 240.0], jnp.float32)
 

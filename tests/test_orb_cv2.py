@@ -17,8 +17,8 @@ cv2 = pytest.importorskip("cv2")
 
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import features as feat_ops
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.ops import features as feat_ops
+from orbslam3_jax.utils.datasets import RoomScene
 
 
 @pytest.fixture(scope="module")

@@ -4,10 +4,10 @@ mono e2e, asserting state, map health and ATE."""
 import numpy as np
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 
 def test_pipelined_mono_tracks_and_matches_sync_quality():

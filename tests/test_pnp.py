@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import lie, pnp
+from orbslam3_jax.ops import lie, pnp
 
 
 def test_pnp_ransac_recovers_pose_with_outliers():
@@ -82,7 +82,7 @@ def test_mlpnp_refine_improves_dlt_pose():
     pose, covariance-weighted bearing optimization converges to the truth —
     including with non-pinhole bearing geometry (rays off the z≈1 plane)."""
     import jax.numpy as jnp
-    from orbslam3_tpu.ops import lie, pnp as pnp_ops
+    from orbslam3_jax.ops import lie, pnp as pnp_ops
     rng = np.random.default_rng(2)
     N = 80
     xw = rng.uniform([-4, -3, 4], [4, 3, 14], (N, 3)).astype(np.float32)

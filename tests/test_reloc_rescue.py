@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.models.frame import build_frame
-from orbslam3_tpu.utils.datasets import RoomScene, walk_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.models.frame import build_frame
+from orbslam3_jax.utils.datasets import RoomScene, walk_trajectory
 
 
 def _built_system():
@@ -66,7 +66,7 @@ def test_reloc_rescue_recovers_near_miss():
     assert frame.n_matched() >= base_inl + 10
     # recovered pose equals the true query pose mapped through the
     # gt→map-frame similarity (mono map frame/scale are arbitrary)
-    from orbslam3_tpu.utils.evaluation import horn_align
+    from orbslam3_jax.utils.evaluation import horn_align
     ts, R_wc, t_wc, lost = slam.export_trajectory()
     gt_c = np.array([-R.T @ t for (R, t) in poses])
     sel = ~lost

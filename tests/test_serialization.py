@@ -1,10 +1,10 @@
 """Map/Atlas save-load roundtrip + timing instrumentation."""
 import numpy as np
 
-from orbslam3_tpu.models.atlas import Atlas
-from orbslam3_tpu.models.map import MapConfig, MapState
-from orbslam3_tpu.utils import serialization as ser
-from orbslam3_tpu.utils.timing import StageTimer
+from orbslam3_jax.models.atlas import Atlas
+from orbslam3_jax.models.map import MapConfig, MapState
+from orbslam3_jax.utils import serialization as ser
+from orbslam3_jax.utils.timing import StageTimer
 
 
 def _toy_map(seed=0):

@@ -3,8 +3,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.parallel import sharded_ba
+from orbslam3_jax.ops import lie
+from orbslam3_jax.parallel import sharded_ba
 
 K_CAM = np.asarray([458.0, 458.0, 376.0, 240.0], np.float32)
 
@@ -102,7 +102,7 @@ def test_sharded_full_lm_matches_single_device_256kf():
     outlier gate) at reference problem scale (256 KFs) must match the
     single-device ops/ba.local_ba solve (VERDICT r1 #9)."""
     import functools
-    from orbslam3_tpu.ops import ba as ba_ops
+    from orbslam3_jax.ops import ba as ba_ops
 
     n_dev = len(jax.devices())
     n_kf, n_pts = 256, 1024

@@ -3,9 +3,9 @@ localization-only mode, resets, state getters, map save/load."""
 import numpy as np
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackState
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackState
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
 
 
 def _run(sys, scene, poses, start=0, n=None):

@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import lie, twoview
+from orbslam3_jax.ops import lie, twoview
 
 
 def make_pair(n=300, noise_n=0.5 / 458.0, n_out=30, seed=0):

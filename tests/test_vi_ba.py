@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import sys
 sys.path.insert(0, "/root/repo")
 from tests.test_imu_init import simulate  # noqa: E402
-from orbslam3_tpu.ops import lie, vi_ba  # noqa: E402
+from orbslam3_jax.ops import lie, vi_ba  # noqa: E402
 
 K_CAM = np.asarray([458.0, 458.0, 376.0, 240.0], np.float32)
 
@@ -159,7 +159,7 @@ def test_pose_inertial_15dim_marginal_prior_tracks_bias():
     edges. Driving several frames with a WRONG initial bias must recover
     toward the true bias through the chain — the r3 9-dim prior had no bias
     linkage at frame rate, so the error could never shrink."""
-    from orbslam3_tpu.ops import imu as imu_ops
+    from orbslam3_jax.ops import imu as imu_ops
 
     bg_true = (0.02, -0.015, 0.01)
     ba_true = (0.12, -0.08, 0.1)

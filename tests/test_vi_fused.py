@@ -16,11 +16,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.models.tracking import TrackingParams
-from orbslam3_tpu.ops import lie
-from orbslam3_tpu.utils.datasets import RoomScene
-from orbslam3_tpu.utils.evaluation import evaluate_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.models.tracking import TrackingParams
+from orbslam3_jax.ops import lie
+from orbslam3_jax.utils.datasets import RoomScene
+from orbslam3_jax.utils.evaluation import evaluate_trajectory
 
 G_W = np.array([0.0, 9.81, 0.0])
 FPS = 20.0

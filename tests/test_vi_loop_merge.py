@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import sys
 sys.path.insert(0, "/root/repo")
 from tests.test_imu_init import simulate  # noqa: E402
-from orbslam3_tpu.models.map import MapConfig  # noqa: E402
-from orbslam3_tpu.models.system import SlamSystem  # noqa: E402
-from orbslam3_tpu.ops import lie  # noqa: E402
+from orbslam3_jax.models.map import MapConfig  # noqa: E402
+from orbslam3_jax.models.system import SlamSystem  # noqa: E402
+from orbslam3_jax.ops import lie  # noqa: E402
 
 # inertial loop/merge consistency sequences — excluded from the fast profile (pytest.ini)
 pytestmark = pytest.mark.slow

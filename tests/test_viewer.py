@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 
 from conftest import dense_tracking_params
-from orbslam3_tpu.models.system import SlamSystem
-from orbslam3_tpu.utils.datasets import RoomScene, orbit_trajectory
+from orbslam3_jax.models.system import SlamSystem
+from orbslam3_jax.utils.datasets import RoomScene, orbit_trajectory
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +25,7 @@ def small_run():
 
 
 def test_headless_render(small_run, tmp_path):
-    from orbslam3_tpu.models import viewer
+    from orbslam3_jax.models import viewer
     out = tmp_path / "map.png"
     ts, R_wc, t_wc, lost = small_run.export_trajectory()
     viewer.render_map(small_run.map, str(out), trajectory=t_wc)

@@ -3,7 +3,7 @@ loadFromTextFile, Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:241)."""
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam3_tpu.ops import vocab as vocab_ops
+from orbslam3_jax.ops import vocab as vocab_ops
 
 
 def _desc_line(parent, leaf, desc_bytes, weight):

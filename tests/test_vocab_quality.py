@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from orbslam3_tpu.models.loop_closing import _default_vocabulary
-from orbslam3_tpu.ops import features as feat_ops, vocab as vocab_ops
-from orbslam3_tpu.utils.datasets import RoomScene
+from orbslam3_jax.models.loop_closing import _default_vocabulary
+from orbslam3_jax.ops import features as feat_ops, vocab as vocab_ops
+from orbslam3_jax.utils.datasets import RoomScene
 
 N_VIEWS = 16
 
